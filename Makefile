@@ -10,8 +10,8 @@ CXX ?= g++
 
 all: native test selfcheck
 
-# Native runtime helpers (host-side C++; the compute path is JAX/Pallas).
-# Loaded through ctypes — see gogp_tpu/utils/native.py; pure-Python
+# Native runtime helpers (host-side C++; the compute path is JAX/XLA).
+# Loaded through ctypes — see gogp/utils/native.py; pure-Python
 # fallbacks keep everything working unbuilt.
 native: native/libgogp_native.so
 
@@ -31,12 +31,12 @@ test-all:
 # tutorial/Makefile loops the five studies; serial-vs-parallel duplication
 # is replaced by the batched-vs-sequential paths covered in tests/).
 selfcheck:
-	$(PY) -m gogp_tpu.tutorial.barebones   --seed 0 selfcheck > /dev/null
-	$(PY) -m gogp_tpu.tutorial.hyperpriors --seed 0 selfcheck > /dev/null
-	$(PY) -m gogp_tpu.tutorial.warpedtime  --seed 0 selfcheck > /dev/null
-	$(PY) -m gogp_tpu.tutorial.anynoise    --seed 0 selfcheck > /dev/null
-	$(PY) -m gogp_tpu.tutorial.events      --seed 0 --events 1.0:1.0:0.5,4.2:6.7:0.25 selfcheck > /dev/null
-	$(PY) -m gogp_tpu.tutorial.classify    --seed 0 --iters 60 selfcheck > /dev/null
+	$(PY) -m gogp.tutorial.barebones   --seed 0 selfcheck > /dev/null
+	$(PY) -m gogp.tutorial.hyperpriors --seed 0 selfcheck > /dev/null
+	$(PY) -m gogp.tutorial.warpedtime  --seed 0 selfcheck > /dev/null
+	$(PY) -m gogp.tutorial.anynoise    --seed 0 selfcheck > /dev/null
+	$(PY) -m gogp.tutorial.events      --seed 0 --events 1.0:1.0:0.5,4.2:6.7:0.25 selfcheck > /dev/null
+	$(PY) -m gogp.tutorial.classify    --seed 0 --iters 60 selfcheck > /dev/null
 	@echo "selfchecks ok"
 
 bench:

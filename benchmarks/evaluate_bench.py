@@ -22,16 +22,19 @@ import jax
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from gogp.utils.compile_cache import enable_compile_cache  # noqa: E402
+from gogp.utils.device import require_gpu  # noqa: E402
+
+enable_compile_cache()
+
 
 
 def run(alg: str = "adam", iters: int = 200, seed: int = 0):
     import io as _io
 
-    from gogp_tpu.tutorial import io as tio
-    from gogp_tpu.tutorial.evaluate import EvalConfig, evaluate
-    from gogp_tpu.tutorial.hyperpriors import make_study, selfcheck_data
+    from gogp.tutorial import io as tio
+    from gogp.tutorial.evaluate import EvalConfig, evaluate
+    from gogp.tutorial.hyperpriors import make_study, selfcheck_data
 
     study = make_study()
     x, y = tio.load_csv(selfcheck_data())
@@ -68,6 +71,7 @@ def main():
     ap.add_argument("--iters", type=int, default=200)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    require_gpu(1, "evaluate_bench.py")  # a measurement never falls back to the CPU
     print(json.dumps(run(args.alg, args.iters, args.seed)))
 
 

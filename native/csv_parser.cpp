@@ -2,7 +2,7 @@
 //
 // Native counterpart of the reference's load() (tutorial/tutorial.go:234-272):
 // rows of comma-separated floats, all columns but the last are input
-// coordinates.  The Python fallback in gogp_tpu/tutorial/io.py is
+// coordinates.  The Python fallback in gogp/tutorial/io.py is
 // line/split/float() — fine for the 20-44 point tutorial sets, but the
 // large-N path (BASELINE 16k+ rows) deserves a single-pass scanner.
 //

@@ -10,7 +10,7 @@
 // accelerator never waits on host row-gather.
 //
 // Sampling contract: uniform with replacement via xorshift64* seeded by the
-// caller — gogp_tpu/utils/dataio.py implements the SAME generator in the
+// caller — gogp/utils/dataio.py implements the SAME generator in the
 // pure-Python fallback, so native and fallback streams are bit-identical
 // (pinned by tests/test_dataio.py).
 //

@@ -31,8 +31,8 @@ FIXTURE_DIR = Path(__file__).resolve().parent / "fixtures"
 
 # (name, study factory thunk)
 def studies():
-    from gogp_tpu.tutorial import anynoise, barebones, events, hyperpriors, warpedtime
-    from gogp_tpu.tutorial.events import parse_events
+    from gogp.tutorial import anynoise, barebones, events, hyperpriors, warpedtime
+    from gogp.tutorial.events import parse_events
 
     return [
         ("barebones", barebones.make_study, barebones.selfcheck_data),
@@ -48,8 +48,8 @@ def studies():
 
 
 def run_study(factory, data_fn):
-    from gogp_tpu.tutorial import io as tio
-    from gogp_tpu.tutorial.evaluate import EvalConfig, evaluate
+    from gogp.tutorial import io as tio
+    from gogp.tutorial.evaluate import EvalConfig, evaluate
 
     x, y = tio.load_csv(data_fn())
     cfg = EvalConfig(alg="lbfgs", iters=200, seed=0, out_of_sample=False)

@@ -6,7 +6,7 @@ import io
 import numpy as np
 import pytest
 
-from gogp_tpu.tutorial import bayes
+from gogp.tutorial import bayes
 
 
 def run_driver(args):

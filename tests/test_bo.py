@@ -1,13 +1,13 @@
-"""Bayesian optimization (gogp_tpu/bo.py): acquisition math + end-to-end
+"""Bayesian optimization (gogp/bo.py): acquisition math + end-to-end
 optimization, all on the streaming/serving stack (no refits)."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gogp_tpu import bo
-from gogp_tpu.gp import core
-from gogp_tpu.kernels import rbf, uniform_noise
+from gogp import bo
+from gogp.gp import core
+from gogp.kernels import rbf, uniform_noise
 
 
 def _gp():
@@ -195,7 +195,7 @@ class TestContinuousThompson:
         )
         # same key -> same sampled path; its max over a coarse grid cannot
         # beat the continuous optimum
-        from gogp_tpu.gp import pathwise
+        from gogp.gp import pathwise
         kp, _ = jax.random.split(key)
         ps = pathwise.sample_paths(gp, state.post, kp, 1, 512)
         grid = jnp.linspace(0.0, 10.0, 11)[:, None]

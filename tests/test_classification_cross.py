@@ -11,8 +11,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gogp_tpu.gp import core, laplace, likelihoods, sparse
-from gogp_tpu.kernels import normal as rbf
+from gogp.gp import core, laplace, likelihoods, sparse
+from gogp.kernels import normal as rbf
 
 
 def _data(seed=0, n=48):

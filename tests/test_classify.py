@@ -4,9 +4,9 @@ import io
 
 import numpy as np
 
-from gogp_tpu.gp import likelihoods
-from gogp_tpu.tutorial import io as tio
-from gogp_tpu.tutorial.classify import (
+from gogp.gp import likelihoods
+from gogp.tutorial import io as tio
+from gogp.tutorial.classify import (
     evaluate_classify,
     main,
     make_gp,

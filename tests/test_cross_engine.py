@@ -10,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gogp_tpu import infer
-from gogp_tpu.models.params import gp_observe
-from gogp_tpu.tutorial import io as tio
-from gogp_tpu.tutorial.hyperpriors import make_priors, make_study, selfcheck_data
+from gogp import infer
+from gogp.models.params import gp_observe
+from gogp.tutorial import io as tio
+from gogp.tutorial.hyperpriors import make_priors, make_study, selfcheck_data
 
 
 @pytest.fixture(scope="module")

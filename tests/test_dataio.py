@@ -9,7 +9,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gogp_tpu.utils import dataio
+from gogp.utils import dataio
 
 
 def _make(tmp_path, n=64, d=2, seed=0):
@@ -89,8 +89,8 @@ class TestStream:
 
 class TestSVGPStream:
     def test_stream_training_matches_in_memory_estimator(self, tmp_path):
-        from gogp_tpu.gp import core, sparse
-        from gogp_tpu.kernels import normal as rbf, uniform_noise
+        from gogp.gp import core, sparse
+        from gogp.kernels import normal as rbf, uniform_noise
 
         rng = np.random.default_rng(5)
         n = 256

@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gogp_tpu.gp import core
-from gogp_tpu.kernels import deep as dk, normal as rbf, uniform_noise
-from gogp_tpu.models.params import gp_observe
+from gogp.gp import core
+from gogp.kernels import deep as dk, normal as rbf, uniform_noise
+from gogp.models.params import gp_observe
 
 
 class TestStructure:
@@ -57,8 +57,8 @@ class TestLearning:
     def test_deep_kernel_fits_nonstationary_step(self):
         # A step function defeats a stationary RBF at any single lengthscale;
         # the MLP warp can stretch the axis around the step.
-        from gogp_tpu.infer import mle
-        from gogp_tpu.models.params import make_gp_logp
+        from gogp.infer import mle
+        from gogp.models.params import make_gp_logp
 
         rng = np.random.default_rng(3)
         n = 48

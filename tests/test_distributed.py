@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from gogp_tpu.ops import distributed, linalg
-from gogp_tpu.parallel import DATA_AXIS, make_mesh
+from gogp.ops import distributed, linalg
+from gogp.parallel import DATA_AXIS, make_mesh
 
 
 def spd_matrix(n, seed=0):
@@ -184,10 +184,10 @@ class TestLMLGradient:
 
     def test_grad_through_theta(self, mesh):
         """End-to-end: d lml / d theta through a sharded covariance build."""
-        from gogp_tpu.gp.core import GP
-        from gogp_tpu.kernels import rbf, uniform_noise
-        from gogp_tpu.models.params import gp_observe
-        from gogp_tpu.parallel.large_n import make_rowsharded_logp
+        from gogp.gp.core import GP
+        from gogp.kernels import rbf, uniform_noise
+        from gogp.models.params import gp_observe
+        from gogp.parallel.large_n import make_rowsharded_logp
 
         gp = GP(ndim=1, simil=rbf.scaled(), noise=uniform_noise)
         n = 64
@@ -197,7 +197,7 @@ class TestLMLGradient:
         mask = jnp.ones(n)
 
         def device_fn(x_local, y_local, m_local, v):
-            from gogp_tpu.parallel.large_n import make_rowsharded_value_and_grad
+            from gogp.parallel.large_n import make_rowsharded_value_and_grad
 
             x_full = jax.lax.all_gather(x_local, DATA_AXIS, tiled=True)
             logp = make_rowsharded_logp(

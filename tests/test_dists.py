@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import scipy.stats as st
 
-from gogp_tpu import dists
+from gogp import dists
 
 XS = np.array([0.1, 0.7, 1.3, 2.9])
 

@@ -15,9 +15,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gogp_tpu.gp import core, ep, laplace, likelihoods
-from gogp_tpu.kernels import normal as rbf
-from gogp_tpu.kernels.noise import constant_noise
+from gogp.gp import core, ep, laplace, likelihoods
+from gogp.kernels import normal as rbf
+from gogp.kernels.noise import constant_noise
 
 
 def _class_data(seed=0, n=24):
@@ -128,7 +128,7 @@ class TestGradientsAndProtocol:
         np.testing.assert_allclose(float(jitted(ts)), float(ll), atol=1e-10)
 
     def test_serving_bridge(self):
-        from gogp_tpu.gp.serve import serve_predict
+        from gogp.gp.serve import serve_predict
 
         x, y = _class_data(seed=8, n=16)
         gp = core.GP(1, rbf.scaled())

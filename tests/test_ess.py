@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gogp_tpu.gp import core, laplace
-from gogp_tpu.gp.likelihoods import bernoulli_logit, gaussian
-from gogp_tpu.infer import elliptical as ess
-from gogp_tpu.kernels import rbf, uniform_noise
+from gogp.gp import core, laplace
+from gogp.gp.likelihoods import bernoulli_logit, gaussian
+from gogp.infer import elliptical as ess
+from gogp.kernels import rbf, uniform_noise
 
 
 def _data(n=20, seed=0):
@@ -130,11 +130,11 @@ class TestSharded:
     def test_device_count_invariance(self):
         # chains over an 8-device mesh produce BITWISE the single-device
         # draws (per-chain fold_in streams; zero collectives)
-        from gogp_tpu.parallel import mesh as pmesh
-        from gogp_tpu.parallel.sample import run_ess_sharded
-        from gogp_tpu.infer.elliptical import run_ess
-        from gogp_tpu.gp.core import masked_cov
-        from gogp_tpu.ops import linalg
+        from gogp.parallel import mesh as pmesh
+        from gogp.parallel.sample import run_ess_sharded
+        from gogp.infer.elliptical import run_ess
+        from gogp.gp.core import masked_cov
+        from gogp.ops import linalg
 
         gp = core.GP(ndim=1, simil=rbf.scaled())
         x, f, _ = _data(12)

@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gogp_tpu.tutorial import anynoise, barebones, events, hyperpriors, warpedtime
-from gogp_tpu.tutorial.evaluate import EvalConfig, evaluate
-from gogp_tpu.tutorial.io import load_csv, normalize
+from gogp.tutorial import anynoise, barebones, events, hyperpriors, warpedtime
+from gogp.tutorial.evaluate import EvalConfig, evaluate
+from gogp.tutorial.io import load_csv, normalize
 
 CFG = dict(iters=40, seed=3)
 
@@ -167,7 +167,7 @@ def test_events_parse():
 def test_cli_smoke(capsys):
     """Drive one CLI end-to-end through run_cli (stdout capture)."""
     out = io.StringIO()
-    from gogp_tpu.tutorial.evaluate import run_cli
+    from gogp.tutorial.evaluate import run_cli
 
     run_cli(
         barebones.make_study,

@@ -19,8 +19,8 @@ jittered initializations.
 import numpy as np
 import pytest
 
-from gogp_tpu.tutorial import anynoise, barebones, events, hyperpriors, warpedtime
-from gogp_tpu.tutorial.events import parse_events
+from gogp.tutorial import anynoise, barebones, events, hyperpriors, warpedtime
+from gogp.tutorial.events import parse_events
 
 from make_forecast_fixtures import FIXTURE_DIR, run_study
 
@@ -67,9 +67,9 @@ def test_lbfgs_not_beaten_by_scipy():
     import jax.numpy as jnp
     from scipy.optimize import minimize
 
-    from gogp_tpu.models.params import gp_observe
-    from gogp_tpu.tutorial import io as tio
-    from gogp_tpu.tutorial.evaluate import EvalConfig, evaluate
+    from gogp.models.params import gp_observe
+    from gogp.tutorial import io as tio
+    from gogp.tutorial.evaluate import EvalConfig, evaluate
 
     study = barebones.make_study()
     gp = study.gp

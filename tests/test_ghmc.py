@@ -4,7 +4,7 @@ agreement with ChEES on the flagship GP posterior.
 
 The reference delegates inference entirely (tutorial/tutorial.go:128-169);
 GHMC joins the north-star inference layer as the no-trajectory-knob sampler
-(see gogp_tpu/infer/ghmc.py docstring for the design and its deviations
+(see gogp/infer/ghmc.py docstring for the design and its deviations
 from Hoffman & Sountsov 2022).
 """
 
@@ -13,9 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gogp_tpu import infer
-from gogp_tpu.infer import diagnostics
-from gogp_tpu.infer.ghmc import (
+from gogp import infer
+from gogp.infer import diagnostics
+from gogp.infer.ghmc import (
     finalize_ghmc_warmup,
     ghmc_init,
     ghmc_sample_chunk,
@@ -150,12 +150,11 @@ class TestGHMCOnGP:
         thetas + noise, N(0,1) priors) is unimodal, so finite-sample
         engine comparisons are stable; the multimodal hyperpriors
         posterior makes any finite-run mean comparison a mode-weight
-        lottery (measured: ChEES itself varies by that much across
-        seeds — STATUS round 4)."""
-        from gogp_tpu import dists
-        from gogp_tpu.models.params import gp_observe
-        from gogp_tpu.tutorial import io as tio
-        from gogp_tpu.tutorial.barebones import make_study, selfcheck_data
+        lottery (ChEES itself varies by that much across seeds)."""
+        from gogp import dists
+        from gogp.models.params import gp_observe
+        from gogp.tutorial import io as tio
+        from gogp.tutorial.barebones import make_study, selfcheck_data
 
         study = make_study()
         gp = study.gp

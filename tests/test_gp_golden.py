@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gogp_tpu.gp.core import GP, absorb, lml_from_posterior, predict_from_posterior
-from gogp_tpu.kernels import constant_noise, normal, uniform_noise
-from gogp_tpu.models.params import gp_observe
+from gogp.gp.core import GP, absorb, lml_from_posterior, predict_from_posterior
+from gogp.kernels import constant_noise, normal, uniform_noise
+from gogp.models.params import gp_observe
 
 # -- TestProduce (gp/gp_test.go:14-165) ------------------------------------
 
@@ -54,7 +54,7 @@ def test_produce(case, jit):
     z = jnp.asarray(z)
 
     if len(x) == 0:
-        from gogp_tpu.gp.core import predict_prior
+        from gogp.gp.core import predict_prior
 
         fn = jax.jit(lambda t, zz: predict_prior(gp, t, zz)) if jit else (
             lambda t, zz: predict_prior(gp, t, zz)
@@ -76,8 +76,8 @@ def test_produce(case, jit):
 
 
 def test_produce_padded_equivalence():
-    """Padding with masked rows must not change predictions — the TPU
-    replacement for the reference's serial/parallel invariant."""
+    """Padding with masked rows must not change predictions — the
+    static-shape replacement for the reference's serial/parallel invariant."""
     gp = GP(ndim=1, simil=normal, noise=constant_noise(0.1))
     theta = jnp.ones(1)
     x = jnp.asarray([[0.0], [1.0]])
@@ -154,7 +154,7 @@ def test_gradient_wrt_outputs_is_minus_alpha():
     """Reference gp/gp.go:488-493: dLML/dy = -alpha."""
     gp = GP(ndim=1, simil=normal, noise=constant_noise(0.1))
     v = jnp.asarray([0.3, -2.0, -1.0, 0.5, 1.0])  # 1 theta + 2 inputs + 2 outputs
-    from gogp_tpu.models.params import gp_posterior
+    from gogp.models.params import gp_posterior
 
     post = gp_posterior(gp, v)
     grad = jax.grad(lambda vv: gp_observe(gp, vv))(v)
@@ -167,14 +167,14 @@ def test_gradient_wrt_outputs_is_minus_alpha():
 # builder they validate.  This class closes that loop: the expected values
 # are DERIVED IN-TEST by an independent exact-arithmetic GP written in pure
 # mpmath at 50 decimal digits — no transcription, no shared code with
-# gogp_tpu (only the *formulas* of GPML eq. 2.30/5.8 and the reference
+# gogp (only the *formulas* of GPML eq. 2.30/5.8 and the reference
 # kernel definitions, kernel/kernel.go:23-92, gp/gp.go:244-360).
 
 
 class _MPGP:
     """Pure-mpmath GP: covariance, Cholesky, LML, predict.
 
-    Deliberately shares nothing with gogp_tpu — plain Python loops over
+    Deliberately shares nothing with gogp — plain Python loops over
     mp.mpf scalars, its own forward/backward substitution.
     """
 
@@ -297,8 +297,8 @@ class TestIndependentGoldens:
         1e-6."""
         import mpmath as mp
 
-        from gogp_tpu.gp.core import lml
-        from gogp_tpu.kernels import matern52_ref, periodic, uniform_noise
+        from gogp.gp.core import lml
+        from gogp.kernels import matern52_ref, periodic, uniform_noise
 
         mpgp = _MPGP(_mp_pair_composite, lambda tn, xi: tn[0] * tn[0])
         xs = [mp.mpf(q) for q in ("0", "0.5", "1", "1.75", "2.5", "3")]
@@ -337,7 +337,7 @@ class TestIndependentGoldens:
         vs the independent derivation at three off-grid test points."""
         import mpmath as mp
 
-        from gogp_tpu.kernels import matern52_ref, periodic, uniform_noise
+        from gogp.kernels import matern52_ref, periodic, uniform_noise
 
         mpgp = _MPGP(_mp_pair_composite, lambda tn, xi: tn[0] * tn[0])
         xs = [mp.mpf(q) for q in ("0", "0.5", "1", "1.75", "2.5", "3")]

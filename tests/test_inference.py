@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gogp_tpu import infer
-from gogp_tpu.infer import diagnostics
+from gogp import infer
+from gogp.infer import diagnostics
 
 # 2-D correlated Gaussian target
 COV = np.array([[2.0, 1.2], [1.2, 1.5]])
@@ -182,7 +182,7 @@ class TestFullRankADVI:
             mvn_logp, jnp.zeros(2), jax.random.PRNGKey(0),
             num_steps=6000, learning_rate=0.02, num_draws=16,
         )
-        from gogp_tpu.infer.advi import _chol_of
+        from gogp.infer.advi import _chol_of
 
         L = np.asarray(_chol_of(res.chol_raw))
         cov_hat = L @ L.T
@@ -255,8 +255,8 @@ class TestGPPosterior:
 
     @pytest.fixture(scope="class")
     def gp_logp(self):
-        from gogp_tpu.models.params import gp_observe
-        from gogp_tpu.tutorial.hyperpriors import make_priors, make_study
+        from gogp.models.params import gp_observe
+        from gogp.tutorial.hyperpriors import make_priors, make_study
 
         study = make_study()
         gp = study.gp
@@ -288,8 +288,8 @@ class TestGPPosterior:
         """Mean-field ADVI is mode-seeking: on the well-identified barebones
         model its mean must sit near the MAP (posterior *means* can
         legitimately differ from NUTS on skewed log-noise marginals)."""
-        from gogp_tpu.models.params import gp_observe
-        from gogp_tpu.tutorial.barebones import make_study
+        from gogp.models.params import gp_observe
+        from gogp.tutorial.barebones import make_study
 
         gp = make_study().gp
         rng = np.random.default_rng(1)
@@ -352,7 +352,7 @@ class TestDiagnostics:
     def test_gated_min_ess_stuck_chain(self):
         # a deliberately stuck chain must trip the (rank-normalized)
         # R-hat gate so benchmarks null the ESS/s instead of reporting a
-        # number (VERDICT r4 weakness #3)
+        # number
         good = np.asarray(jax.random.normal(jax.random.PRNGKey(3), (4, 500, 2)))
         me, mr, ok = diagnostics.gated_min_ess(jnp.asarray(good))
         assert ok and mr < 1.01 and me > 500

@@ -11,9 +11,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gogp_tpu.gp.core import GP, lml, lml_iterative, masked_cov
-from gogp_tpu.kernels import rbf, uniform_noise
-from gogp_tpu.ops.iterative import (
+from gogp.gp.core import GP, lml, lml_iterative, masked_cov
+from gogp.kernels import rbf, uniform_noise
+from gogp.ops.iterative import (
     cg_solve,
     lml_core_iterative,
     rademacher,
@@ -76,7 +76,7 @@ def make_dense_gp_cov(n=256, noise_var=1e-2, seed=6):
 
 class TestPivotedPrecond:
     def test_pivoted_cholesky_captures_smooth_kernel(self):
-        from gogp_tpu.ops.iterative import pivoted_cholesky
+        from gogp.ops.iterative import pivoted_cholesky
 
         K, nv = make_dense_gp_cov()
         L = pivoted_cholesky(K, rank=32, shift=nv)
@@ -85,7 +85,7 @@ class TestPivotedPrecond:
         assert rel < 1e-3, rel  # smooth RBF spectrum decays fast
 
     def test_pcg_beats_plain_cg(self):
-        from gogp_tpu.ops.iterative import cg_solve, pivoted_precond
+        from gogp.ops.iterative import cg_solve, pivoted_precond
 
         K, nv = make_dense_gp_cov()
         y = jnp.asarray(np.random.default_rng(7).normal(size=K.shape[0]))
@@ -102,7 +102,7 @@ class TestPivotedPrecond:
         coefficient quadrature with N(0, P) probes — machine precision on
         the smooth kernel where plain SLQ plateaus (rank-32 P captures
         the whole signal spectrum there)."""
-        from gogp_tpu.ops.iterative import (
+        from gogp.ops.iterative import (
             pivoted_precond,
             rademacher,
             slq_logdet,
@@ -127,7 +127,7 @@ class TestPivotedPrecond:
         """With precond_rank the whole lml estimator (PCG solves +
         preconditioned SLQ) reaches near-exactness on the smooth-kernel
         covariance."""
-        from gogp_tpu.ops.iterative import lml_core_iterative
+        from gogp.ops.iterative import lml_core_iterative
 
         K, nv = make_dense_gp_cov(n=384)
         y = jnp.asarray(np.random.default_rng(10).normal(size=K.shape[0]))
@@ -148,7 +148,7 @@ class TestPivotedPrecond:
         """The column-accessor build (matrix-free / row-sharded form) must
         reproduce the dense pivoted Cholesky exactly — same pivots, same
         columns — when its col_fn reads from the same dense K."""
-        from gogp_tpu.ops.iterative import pivoted_cholesky, pivoted_cholesky_cols
+        from gogp.ops.iterative import pivoted_cholesky, pivoted_cholesky_cols
 
         K, nv = make_dense_gp_cov()
         n = K.shape[0]
@@ -164,7 +164,7 @@ class TestPivotedPrecond:
         """At a CG budget where the plain solves have not converged on the
         ill-conditioned covariance, the preconditioned path must land on
         the exact quadratic term."""
-        from gogp_tpu.ops.iterative import lml_core_iterative
+        from gogp.ops.iterative import lml_core_iterative
 
         K, nv = make_dense_gp_cov()
         y = jnp.asarray(np.random.default_rng(8).normal(size=K.shape[0]))
@@ -243,7 +243,7 @@ class TestIterativeLML:
         gradient via the frozen-solution quadratic forms) must equal the
         dense iterative path bit-for-bit up to reassociation — same key,
         same probes, same CG trajectory."""
-        from gogp_tpu.gp.core import lml_iterative_matfree
+        from gogp.gp.core import lml_iterative_matfree
 
         key = jax.random.PRNGKey(7)
         kw = dict(num_probes=32, cg_iters=300, lanczos_iters=48)
@@ -268,7 +268,7 @@ class TestIterativeLML:
         kernel-column evaluations must reproduce the dense path's PCG +
         preconditioned-SLQ estimate (same key, same probe layout) — value
         and theta gradient."""
-        from gogp_tpu.gp.core import lml_iterative_matfree
+        from gogp.gp.core import lml_iterative_matfree
 
         key = jax.random.PRNGKey(13)
         kw = dict(num_probes=16, cg_iters=200, lanczos_iters=24, precond_rank=24)
@@ -296,7 +296,7 @@ class TestIterativeLML:
         """Masked (padded) rows are identity rows in K; the matfree
         preconditioner's columns/diag must honor that exactly as the dense
         builder does."""
-        from gogp_tpu.gp.core import lml_iterative_matfree
+        from gogp.gp.core import lml_iterative_matfree
 
         th = jnp.exp(self.v)
         n = self.x.shape[0]
@@ -313,7 +313,7 @@ class TestIterativeLML:
         assert abs(float(free - dense)) < 1e-5 * abs(float(dense))
 
     def test_matfree_mask(self):
-        from gogp_tpu.gp.core import lml_iterative_matfree
+        from gogp.gp.core import lml_iterative_matfree
 
         th = jnp.exp(self.v)
         n = self.x.shape[0]
@@ -330,7 +330,7 @@ class TestIterativeLML:
         assert abs(float(free - dense)) < 1e-5 * abs(float(dense))
 
     def test_matfree_panel_divisibility(self):
-        from gogp_tpu.ops.iterative import matfree_matvec
+        from gogp.ops.iterative import matfree_matvec
 
         try:
             matfree_matvec(lambda r: None, 100, 33)
@@ -343,7 +343,7 @@ class TestIterativeLML:
         """Matrix-free Produce: one batched CG for [y | Kstar] reproduces
         absorb+predict (noise-free bands, reference gp/gp.go:258-360) to
         solver tolerance — deterministic, no probes involved."""
-        from gogp_tpu.gp.core import predict, predict_iterative
+        from gogp.gp.core import predict, predict_iterative
 
         th = jnp.exp(self.v)
         z = jnp.linspace(0, 11, 23).reshape(-1, 1)

@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gogp_tpu.kernels import (
+from gogp.kernels import (
     linear,
     matern12,
     matern32,

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gogp_tpu.kernels import (
+from gogp.kernels import (
     SQRT3,
     SQRT5,
     constant_noise,
@@ -124,7 +124,7 @@ def test_multidim_inputs():
 
 def test_rational_quadratic_limits():
     """RQ -> RBF as alpha -> infinity; closed form at finite alpha."""
-    from gogp_tpu.kernels import rational_quadratic, rbf
+    from gogp.kernels import rational_quadratic, rbf
 
     xa, xb = jnp.array([0.3]), jnp.array([1.7])
     l = 0.8
@@ -139,14 +139,14 @@ def test_rational_quadratic_limits():
 
 
 def test_linear_kernel():
-    from gogp_tpu.kernels import linear
+    from gogp.kernels import linear
 
     xa, xb = jnp.array([2.0]), jnp.array([3.0])
     assert np.isclose(float(linear(jnp.array([0.5]), xa, xb)), 1.5 * 2.5)
 
 
 def test_white_kernel():
-    from gogp_tpu.kernels import white
+    from gogp.kernels import white
 
     x = jnp.array([1.2])
     assert np.isclose(float(white(jnp.array([0.7]), x, x)), 0.49)
@@ -155,7 +155,7 @@ def test_white_kernel():
 
 def test_new_kernels_psd():
     """Gram matrices of the new kernels must be PSD on random inputs."""
-    from gogp_tpu.kernels import linear, rational_quadratic, white
+    from gogp.kernels import linear, rational_quadratic, white
 
     rng = np.random.default_rng(0)
     x = jnp.asarray(rng.normal(size=(12, 1)))
@@ -175,7 +175,7 @@ class TestARD:
 
     def test_matches_manual_anisotropic_rbf(self):
         import numpy as np
-        from gogp_tpu.kernels import rbf
+        from gogp.kernels import rbf
 
         k = rbf.ard(2)
         assert k.n_theta == 3  # [l1, l2, base l]
@@ -189,7 +189,7 @@ class TestARD:
 
     def test_unit_lengthscales_equal_isotropic(self):
         import numpy as np
-        from gogp_tpu.kernels import matern32
+        from gogp.kernels import matern32
 
         k = matern32.ard(3)
         rng = np.random.default_rng(1)
@@ -200,9 +200,9 @@ class TestARD:
 
     def test_fd_gradient_through_gp(self):
         import numpy as np
-        from gogp_tpu.gp.core import GP
-        from gogp_tpu.kernels import rbf, uniform_noise
-        from gogp_tpu.models.params import gp_observe
+        from gogp.gp.core import GP
+        from gogp.kernels import rbf, uniform_noise
+        from gogp.models.params import gp_observe
 
         gp = GP(ndim=2, simil=rbf.ard(2).scaled(), noise=uniform_noise)
         rng = np.random.default_rng(2)
@@ -219,7 +219,7 @@ class TestARD:
 class TestSpectralMixture:
     def test_single_component_zero_mean_is_scaled_rbf(self):
         import numpy as np
-        from gogp_tpu.kernels import rbf, spectral_mixture
+        from gogp.kernels import rbf, spectral_mixture
 
         l, w = 1.7, 2.3
         v = 1.0 / (2 * np.pi * l) ** 2
@@ -232,7 +232,7 @@ class TestSpectralMixture:
 
     def test_psd_and_symmetric(self):
         import numpy as np
-        from gogp_tpu.kernels import spectral_mixture
+        from gogp.kernels import spectral_mixture
 
         rng = np.random.default_rng(0)
         x = jnp.asarray(rng.uniform(0, 5, size=(40, 1)))
@@ -247,9 +247,9 @@ class TestSpectralMixture:
         # right spectral peak should yield a (much) higher LML than RBF at
         # matched variance — the pattern-discovery property.
         import numpy as np
-        from gogp_tpu.gp.core import GP, lml
-        from gogp_tpu.kernels import rbf, spectral_mixture
-        from gogp_tpu.kernels.noise import constant_noise
+        from gogp.gp.core import GP, lml
+        from gogp.kernels import rbf, spectral_mixture
+        from gogp.kernels.noise import constant_noise
 
         rng = np.random.default_rng(3)
         x = jnp.asarray(np.linspace(0, 10, 60).reshape(-1, 1))
@@ -263,9 +263,9 @@ class TestSpectralMixture:
 
     def test_multidim_fd_gradient_through_gp(self):
         import numpy as np
-        from gogp_tpu.gp.core import GP
-        from gogp_tpu.kernels import spectral_mixture, uniform_noise
-        from gogp_tpu.models.params import gp_observe
+        from gogp.gp.core import GP
+        from gogp.kernels import spectral_mixture, uniform_noise
+        from gogp.models.params import gp_observe
 
         gp = GP(ndim=2, simil=spectral_mixture(2, ndim=2), noise=uniform_noise)
         rng = np.random.default_rng(4)
@@ -282,7 +282,7 @@ class TestSpectralMixture:
 class TestMatern12:
     def test_value_and_diagonal(self):
         import numpy as np
-        from gogp_tpu.kernels import matern12
+        from gogp.kernels import matern12
 
         xa, xb = jnp.asarray([1.0]), jnp.asarray([3.0])
         got = float(matern12(jnp.asarray([2.0]), xa, xb))

@@ -10,12 +10,12 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from gogp_tpu import infer, parallel
-from gogp_tpu.gp.core import GP
-from gogp_tpu.kernels import rbf, uniform_noise
-from gogp_tpu.models.params import gp_observe
-from gogp_tpu.parallel import DATA_AXIS
-from gogp_tpu.parallel.large_n import make_rowsharded_logp
+from gogp import infer, parallel
+from gogp.gp.core import GP
+from gogp.kernels import rbf, uniform_noise
+from gogp.models.params import gp_observe
+from gogp.parallel import DATA_AXIS
+from gogp.parallel.large_n import make_rowsharded_logp
 
 
 @pytest.fixture(scope="module")
@@ -93,8 +93,8 @@ class TestRowShardedIterative:
         mesh must reproduce the dense lml_core_iterative with the same
         probe key — value and psum-completed theta gradient — up to float
         reassociation of the gathered matvecs."""
-        from gogp_tpu.gp.core import lml_iterative, masked_cov
-        from gogp_tpu.parallel.large_n import psum_grads
+        from gogp.gp.core import lml_iterative, masked_cov
+        from gogp.parallel.large_n import psum_grads
 
         gp, x, y = problem
         n = x.shape[0]
@@ -138,8 +138,8 @@ class TestRowShardedIterative:
         preconditioner built from all_gathered column slices must
         reproduce the dense PCG + preconditioned-SLQ estimate with the
         same key — value and psum-completed theta gradient."""
-        from gogp_tpu.gp.core import lml_iterative
-        from gogp_tpu.parallel.large_n import psum_grads
+        from gogp.gp.core import lml_iterative
+        from gogp.parallel.large_n import psum_grads
 
         gp, x, y = problem
         n = x.shape[0]

@@ -17,10 +17,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gogp_tpu.gp import core
-from gogp_tpu.infer import mle
-from gogp_tpu.kernels import rbf, uniform_noise
-from gogp_tpu.models.params import gp_observe
+from gogp.gp import core
+from gogp.infer import mle
+from gogp.kernels import rbf, uniform_noise
+from gogp.models.params import gp_observe
 
 
 def _mean(c, x):

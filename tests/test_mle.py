@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gogp_tpu import GP, matern32, uniform_noise
-from gogp_tpu.infer import mle
-from gogp_tpu.models import make_gp_logp, masked_value_and_grad
+from gogp import GP, matern32, uniform_noise
+from gogp.infer import mle
+from gogp.models import make_gp_logp, masked_value_and_grad
 
 
 def quadratic_logp(v):
@@ -50,7 +50,7 @@ def test_lbfgs_improves_gp_lml():
 
 
 def test_optimizers_vmap():
-    """Batched independent fits — the TPU-first pattern behind Evaluate."""
+    """Batched independent fits — the batched pattern behind Evaluate."""
     inits = jnp.asarray([[0.0, 0.0, 0.0], [2.0, 2.0, 2.0], [-1.0, 3.0, 0.1]])
     res = jax.vmap(lambda v: mle.lbfgs(quadratic_logp, v, iters=100))(inits)
     for i in range(3):

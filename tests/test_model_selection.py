@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gogp_tpu.gp import core, model_selection as ms
-from gogp_tpu.kernels import matern32, rbf, uniform_noise
+from gogp.gp import core, model_selection as ms
+from gogp.kernels import matern32, rbf, uniform_noise
 
 
 def _setup(n=14, seed=0):
@@ -91,8 +91,8 @@ class TestCriteria:
         K = np.asarray(gpm.simil.matrix(jnp.asarray([1.5, 1.0]), x, x))
         y = np.linalg.cholesky(K + 0.05**2 * np.eye(n)) @ rng.normal(size=n)
 
-        from gogp_tpu.infer import mle
-        from gogp_tpu.models.params import gp_observe
+        from gogp.infer import mle
+        from gogp.models.params import gp_observe
 
         def fit(gp):
             f = jax.value_and_grad(lambda v: gp_observe(gp, v, x=jnp.asarray(x), y=jnp.asarray(y)))

@@ -10,9 +10,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gogp_tpu.gp import core
-from gogp_tpu.kernels import matern32, multioutput as mo, rbf, uniform_noise
-from gogp_tpu.models.params import gp_observe
+from gogp.gp import core
+from gogp.kernels import matern32, multioutput as mo, rbf, uniform_noise
+from gogp.models.params import gp_observe
 
 
 def _two_task_data(seed=0, n=16):
@@ -129,7 +129,7 @@ class TestICMInference:
 
     def test_mle_recovers_negative_correlation(self):
         # y2 = -2 y1: the fitted coregionalization must find w1*w2 < 0
-        from gogp_tpu.infer import mle
+        from gogp.infer import mle
 
         gp, X, y, _ = self._gp_and_data()
         v0 = jnp.concatenate([
@@ -145,7 +145,7 @@ class TestICMInference:
 
     def test_serving_composes(self):
         # the serving cache works unchanged on the multi-output kernel
-        from gogp_tpu.gp import serve
+        from gogp.gp import serve
 
         gp, X, y, _ = self._gp_and_data()
         ts = jnp.exp(jnp.asarray([0.0, 1.0, -1.0, np.log(0.1), np.log(0.1)]))

@@ -4,8 +4,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gogp_tpu.gp import core, sparse
-from gogp_tpu.kernels import normal as rbf, uniform_noise
+from gogp.gp import core, sparse
+from gogp.kernels import normal as rbf, uniform_noise
 
 
 def _data(seed=0, n=96):

@@ -27,8 +27,8 @@ def built_lib():
 
 
 def test_parse_matches_python_loader():
-    from gogp_tpu.tutorial.io import load_csv
-    from gogp_tpu.utils.native import parse_csv
+    from gogp.tutorial.io import load_csv
+    from gogp.utils.native import parse_csv
 
     text = "0.1,1.5\n0.2,-2.5\n0.3,0\n"
     a = parse_csv(text)
@@ -37,7 +37,7 @@ def test_parse_matches_python_loader():
 
 
 def test_reference_semantics():
-    from gogp_tpu.utils.native import parse_csv
+    from gogp.utils.native import parse_csv
 
     # exponents, signs, leading '+', bare '.5' all parse (strconv.ParseFloat
     # compatibility); ragged rows and non-numeric fields error
@@ -51,8 +51,8 @@ def test_reference_semantics():
 
 
 def test_tutorial_loader_uses_native_when_built():
-    from gogp_tpu.tutorial import io as tio
-    from gogp_tpu.tutorial.hyperpriors import selfcheck_data
+    from gogp.tutorial import io as tio
+    from gogp.tutorial.hyperpriors import selfcheck_data
 
     x, y = tio.load_csv(selfcheck_data())
     assert x.shape[0] == y.shape[0] > 0

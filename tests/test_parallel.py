@@ -1,7 +1,7 @@
 """Sharded-inference tests on the virtual 8-device CPU mesh.
 
 Replaces the reference's serial-vs-parallel equivalence invariant
-(gp/gp_test.go:123-132) with the TPU equivalents: sharded-vs-single-device
+(gp/gp_test.go:123-132) with the multi-device equivalents: sharded-vs-single-device
 consistency and cross-device adaptation correctness (SURVEY.md §4 test plan).
 """
 
@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gogp_tpu import parallel
-from gogp_tpu.infer import diagnostics
+from gogp import parallel
+from gogp.infer import diagnostics
 
 COV = np.array([[2.0, 1.2], [1.2, 1.5]])
 COV_INV = np.linalg.inv(COV)
@@ -225,7 +225,7 @@ class TestDistributedPTChEES:
         """Same PRNG stream as infer.run_pt_chees: the 8-device and
         1-device distributed runs and the plain local runner must all
         produce the same draws and adapted ladder."""
-        from gogp_tpu.infer.pt_chees import run_pt_chees
+        from gogp.infer.pt_chees import run_pt_chees
 
         def logp(v):
             return -0.5 * jnp.sum(v * v)
@@ -300,7 +300,7 @@ class TestShardedPTChEES:
     def test_matches_local_run_pt_chees(self, mesh1):
         """1x1 mesh must reproduce infer.run_pt_chees exactly (pmean over a
         size-1 axis is the identity; same key schedule)."""
-        from gogp_tpu import infer
+        from gogp import infer
 
         x0 = 0.1 * jax.random.normal(jax.random.PRNGKey(32), (4, 2))
         kwargs = dict(n_replicas=3, beta_min=0.3, num_warmup=80, num_samples=40)
@@ -346,7 +346,7 @@ class TestShardedGHMC:
         )
 
     def test_matches_local_run_ghmc(self, mesh1):
-        from gogp_tpu import infer
+        from gogp import infer
 
         x0 = 0.1 * jax.random.normal(jax.random.PRNGKey(42), (8, 2))
         kwargs = dict(num_warmup=80, num_samples=40)
@@ -403,7 +403,7 @@ class TestShardedChEES:
         """The sharded driver on a 1x1 mesh must reproduce infer.run_chees
         exactly — same transitions, same adaptation, pmean over a size-1
         axis is the identity."""
-        from gogp_tpu import infer
+        from gogp import infer
 
         x0 = 0.1 * jax.random.normal(jax.random.PRNGKey(22), (4, 2))
         kwargs = dict(num_warmup=80, num_samples=40)
@@ -435,7 +435,7 @@ class TestShardedChEES:
 
     def test_pops_matches_local(self, mesh8):
         """Sharded populations must equal infer.run_chees_pops exactly."""
-        from gogp_tpu import infer
+        from gogp import infer
 
         x0 = 0.1 * jax.random.normal(jax.random.PRNGKey(24), (16, 2))
         kwargs = dict(n_pops=8, num_warmup=80, num_samples=40)

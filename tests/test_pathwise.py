@@ -16,10 +16,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gogp_tpu.gp import pathwise
-from gogp_tpu.gp.core import GP, absorb, predict_from_posterior
-from gogp_tpu.gp.serve import compile_posterior, serve_predict_cov
-from gogp_tpu.kernels import (
+from gogp.gp import pathwise
+from gogp.gp.core import GP, absorb, predict_from_posterior
+from gogp.gp.serve import compile_posterior, serve_predict_cov
+from gogp.kernels import (
     matern12,
     matern32,
     matern52,
@@ -176,7 +176,7 @@ class TestMultiOutputPathwise:
         )
 
     def test_icm_feature_covariance_matches_kernel(self):
-        from gogp_tpu.kernels import icm
+        from gogp.kernels import icm
 
         k = icm(normal, n_tasks=2, rank=1)
         theta = self._theta_icm([0.9, -0.6], [0.3, 0.5], [1.1])
@@ -191,7 +191,7 @@ class TestMultiOutputPathwise:
         assert np.max(np.abs(np.asarray(k_hat - k_true))) < 0.08
 
     def test_lmc_feature_covariance_matches_kernel(self):
-        from gogp_tpu.kernels import lmc
+        from gogp.kernels import lmc
 
         k = lmc([normal, matern32], n_tasks=2, rank=1)
         th1 = self._theta_icm([0.8, 0.4], [0.2, 0.3], [1.0])
@@ -211,7 +211,7 @@ class TestMultiOutputPathwise:
     def test_multitask_matheron_mean_exact(self):
         """Posterior path mean over BOTH tasks matches the exact predict
         at any feature count — multi-task Thompson rides unchanged."""
-        from gogp_tpu.kernels import icm, stack_tasks, task_inputs
+        from gogp.kernels import icm, stack_tasks, task_inputs
 
         k = icm(normal, n_tasks=2, rank=1)
         gp = GP(ndim=2, simil=k, noise=uniform_noise)
@@ -235,7 +235,7 @@ class TestMultiOutputPathwise:
         assert np.max(np.abs(fs.mean(axis=0) - np.asarray(mu))) < 0.08
 
     def test_icm_under_product_raises(self):
-        from gogp_tpu.kernels import icm
+        from gogp.kernels import icm
 
         k = icm(normal, n_tasks=2, rank=1) * matern32
         theta = jnp.ones(k.n_theta)
@@ -275,7 +275,7 @@ def test_matern52_ref_tutorial_composite_thompson_path():
 
 class TestSparsePathwise:
     def _fit(self):
-        from gogp_tpu.gp import sparse
+        from gogp.gp import sparse
         gp = GP(ndim=1, simil=normal.scaled(), noise=uniform_noise)
         rng = np.random.default_rng(2)
         x = np.sort(rng.uniform(-3, 3, (120, 1)), axis=0)
@@ -286,7 +286,7 @@ class TestSparsePathwise:
         return gp, ts, state, x, y
 
     def test_moments_match_svgp_predict(self):
-        from gogp_tpu.gp import sparse
+        from gogp.gp import sparse
         gp, ts, state, _, _ = self._fit()
         t = jnp.asarray(np.linspace(-3.5, 3.5, 9)[:, None])
         ps = pathwise.sample_paths_svgp(gp, ts, state, jax.random.PRNGKey(0),
@@ -321,8 +321,8 @@ class TestLaplacePathwise:
     def test_gaussian_likelihood_reduces_to_exact(self):
         # with a Gaussian likelihood the Laplace posterior IS the exact GP
         # posterior: path moments must match the exact latent predictive
-        from gogp_tpu.gp import laplace
-        from gogp_tpu.gp.likelihoods import gaussian
+        from gogp.gp import laplace
+        from gogp.gp.likelihoods import gaussian
 
         gp = GP(ndim=1, simil=normal.scaled())
         rng = np.random.default_rng(4)
@@ -336,14 +336,14 @@ class TestLaplacePathwise:
         z = jnp.asarray(np.linspace(-3, 3, 7)[:, None])
         fs = np.asarray(pathwise.eval_paths(gp, ps, z))
         gpn = GP(ndim=1, simil=normal.scaled(), noise=uniform_noise)
-        mu_ex, sd_ex = __import__("gogp_tpu.gp.core", fromlist=["predict"]).predict(
+        mu_ex, sd_ex = __import__("gogp.gp.core", fromlist=["predict"]).predict(
             gpn, ts, jnp.asarray([sigma]), x, y, z)
         assert np.max(np.abs(fs.mean(axis=0) - np.asarray(mu_ex))) < 0.06
         assert np.max(np.abs(fs.std(axis=0) - np.asarray(sd_ex))) < 0.06
 
     def test_classification_path_moments(self):
-        from gogp_tpu.gp import laplace
-        from gogp_tpu.gp.likelihoods import bernoulli_logit
+        from gogp.gp import laplace
+        from gogp.gp.likelihoods import bernoulli_logit
 
         gp = GP(ndim=1, simil=normal.scaled())
         rng = np.random.default_rng(5)
@@ -360,8 +360,8 @@ class TestLaplacePathwise:
         assert np.max(np.abs(fs.std(axis=0) - np.asarray(sd))) < 0.07
 
     def test_padded_rows_drop_out(self):
-        from gogp_tpu.gp import laplace
-        from gogp_tpu.gp.likelihoods import bernoulli_logit
+        from gogp.gp import laplace
+        from gogp.gp.likelihoods import bernoulli_logit
 
         gp = GP(ndim=1, simil=normal.scaled())
         rng = np.random.default_rng(6)
@@ -383,7 +383,7 @@ class TestSKIPathwise:
     def test_moments_match_dense_pathwise(self):
         # SKI-conditioned paths vs the exact-factor paths on the same
         # problem: same posterior, so moments agree within MC error
-        from gogp_tpu.gp.pathwise import sample_paths_ski
+        from gogp.gp.pathwise import sample_paths_ski
 
         gp, post, x, y = _toy_posterior(n=64, noise=0.2)
         z = jnp.asarray(np.linspace(-3, 3, 7)[:, None])
@@ -397,8 +397,8 @@ class TestSKIPathwise:
         assert np.max(np.abs(fs.std(axis=0) - np.asarray(sd_ex))) < 0.07
 
     def test_2d(self):
-        from gogp_tpu.gp.pathwise import sample_paths_ski
-        from gogp_tpu.gp.core import predict
+        from gogp.gp.pathwise import sample_paths_ski
+        from gogp.gp.core import predict
 
         gp = GP(ndim=2, simil=normal.scaled(), noise=uniform_noise)
         rng = np.random.default_rng(3)

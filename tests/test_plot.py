@@ -4,7 +4,7 @@ import io
 
 import numpy as np
 
-from gogp_tpu.tutorial.plot import load_forecast, plot_forecast
+from gogp.tutorial.plot import load_forecast, plot_forecast
 
 
 def _csv():

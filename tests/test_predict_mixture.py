@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gogp_tpu.gp import GP, predict, predict_mixture
-from gogp_tpu.kernels import rbf, uniform_noise
+from gogp.gp import GP, predict, predict_mixture
+from gogp.kernels import rbf, uniform_noise
 
 
 def setup():

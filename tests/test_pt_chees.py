@@ -10,8 +10,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gogp_tpu import infer
-from gogp_tpu.infer import pt_chees
+from gogp import infer
+from gogp.infer import pt_chees
 
 COV = np.array([[2.0, 1.2], [1.2, 1.5]])
 COV_INV = np.linalg.inv(COV)

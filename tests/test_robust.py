@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gogp_tpu import infer
-from gogp_tpu.gp.core import GP, absorb, lml_from_posterior
-from gogp_tpu.kernels import rbf, uniform_noise
-from gogp_tpu.ops import linalg
+from gogp import infer
+from gogp.gp.core import GP, absorb, lml_from_posterior
+from gogp.kernels import rbf, uniform_noise
+from gogp.ops import linalg
 
 
 class TestCholeskyWithJitter:

@@ -1,12 +1,12 @@
-"""Greedy compositional kernel search (gogp_tpu/search.py)."""
+"""Greedy compositional kernel search (gogp/search.py)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gogp_tpu import search as ks
-from gogp_tpu.gp import core
-from gogp_tpu.kernels import matern32, uniform_noise
+from gogp import search as ks
+from gogp.gp import core
+from gogp.kernels import matern32, uniform_noise
 
 
 def _periodic_trend_data(n=60, seed=0):

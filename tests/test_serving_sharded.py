@@ -7,9 +7,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gogp_tpu import parallel
-from gogp_tpu.gp import core, serve
-from gogp_tpu.kernels import rbf, uniform_noise
+from gogp import parallel
+from gogp.gp import core, serve
+from gogp.kernels import rbf, uniform_noise
 
 
 @pytest.fixture(scope="module")

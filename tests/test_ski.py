@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gogp_tpu.gp import core, ski as gski
-from gogp_tpu.kernels import matern32, rbf, uniform_noise
-from gogp_tpu.ops import ski
+from gogp.gp import core, ski as gski
+from gogp.kernels import matern32, rbf, uniform_noise
+from gogp.ops import ski
 
 
 def _data(n=256, seed=0, span=10.0):
@@ -82,7 +82,7 @@ class TestLML:
 
     def test_heteroscedastic_noise(self):
         # input-dependent noise: impossible on the pure Toeplitz path
-        from gogp_tpu.kernels.base import NoiseKernel
+        from gogp.kernels.base import NoiseKernel
 
         het = NoiseKernel(1, lambda t, xi: t[0] * t[0] * (1.0 + xi[0] / 10.0), "het")
         gp = core.GP(ndim=1, simil=rbf.scaled(), noise=het)
@@ -159,7 +159,7 @@ class TestMultiDim:
         x, y = self._data2d(128)
         ts, tn = jnp.asarray([1.0, 1.2]), jnp.asarray([0.3])
         K = np.asarray(core.masked_cov(gp, ts, tn, x, jnp.ones(128)))
-        from gogp_tpu.gp import ski as gs
+        from gogp.gp import ski as gs
         dims = (64, 64)
         g0, hs = gs._grid_geometry(x, dims)
         idx, w = ski.cubic_interp_nd(x, g0, hs, dims)

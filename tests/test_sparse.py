@@ -17,10 +17,10 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from gogp_tpu.gp import core as gpcore
-from gogp_tpu.gp import sparse
-from gogp_tpu.kernels import rbf, uniform_noise
-from gogp_tpu.parallel import mesh as meshmod
+from gogp.gp import core as gpcore
+from gogp.gp import sparse
+from gogp.kernels import rbf, uniform_noise
+from gogp.parallel import mesh as meshmod
 
 
 def _problem(n=24, seed=0, noise_log=-1.0):
@@ -166,7 +166,7 @@ def test_sgpr_flat_vector_gradient_fd():
 
 def test_sgpr_training_improves_and_beats_fixed_z():
     # a short Adam run through the house optimizer moves thetas AND Z
-    from gogp_tpu.infer import mle
+    from gogp.infer import mle
 
     gp, x, y, ts, tn = _problem(n=40, seed=3)
     m = 6

@@ -9,8 +9,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gogp_tpu.gp import core, streaming
-from gogp_tpu.kernels import matern32, rbf, uniform_noise
+from gogp.gp import core, streaming
+from gogp.kernels import matern32, rbf, uniform_noise
 
 
 def _gp():
@@ -118,7 +118,7 @@ class TestAppend:
         assert np.allclose(np.asarray(post.chol), np.asarray(want.chol), atol=1e-8)
 
     def test_serving_from_streamed_posterior(self):
-        from gogp_tpu.gp import serve
+        from gogp.gp import serve
 
         gp = _gp()
         ts, tn = jnp.array([1.0, 0.8]), jnp.array([0.3])

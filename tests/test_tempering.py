@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gogp_tpu import infer
-from gogp_tpu.infer import tempering
+from gogp import infer
+from gogp.infer import tempering
 
 
 def bimodal_logp(v):

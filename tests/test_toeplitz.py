@@ -11,9 +11,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gogp_tpu.gp import core
-from gogp_tpu.kernels import matern32, rbf, uniform_noise
-from gogp_tpu.ops import toeplitz as tz
+from gogp.gp import core
+from gogp.kernels import matern32, rbf, uniform_noise
+from gogp.ops import toeplitz as tz
 
 
 def _grid_problem(n=256, seed=0, noise=0.3):
@@ -75,7 +75,7 @@ class TestLML:
 
     def test_gradient_matches_exact(self):
         gp, x, y, ts, tn = _grid_problem()
-        from gogp_tpu.models.params import gp_observe
+        from gogp.models.params import gp_observe
 
         v0 = jnp.concatenate([jnp.log(ts), jnp.log(tn)])
         g_exact = jax.grad(lambda v: gp_observe(gp, v, x=x, y=y))(v0)

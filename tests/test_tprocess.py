@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gogp_tpu.gp import core, tprocess
-from gogp_tpu.kernels import matern32, normal as rbf
-from gogp_tpu.kernels.noise import constant_noise
+from gogp.gp import core, tprocess
+from gogp.kernels import matern32, normal as rbf
+from gogp.kernels.noise import constant_noise
 
 
 def _data(seed=0, n=15):
@@ -108,7 +108,7 @@ class TestProtocol:
         # whose residuals are far larger than the kernel predicts is more
         # likely under small nu than under the Gaussian limit — the fat tail
         # pays for the surprise.  MLE over v_nu should find that.
-        from gogp_tpu.infer import mle
+        from gogp.infer import mle
 
         rng = np.random.default_rng(7)
         n = 40

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gogp_tpu import utils
-from gogp_tpu.gp.core import GP, absorb, predict_from_posterior
-from gogp_tpu.kernels import rbf, uniform_noise
+from gogp import utils
+from gogp.gp.core import GP, absorb, predict_from_posterior
+from gogp.kernels import rbf, uniform_noise
 
 
 def test_posterior_checkpoint_roundtrip(tmp_path):
@@ -28,7 +28,7 @@ def test_posterior_checkpoint_roundtrip(tmp_path):
 
 
 def test_sampler_state_checkpoint_roundtrip(tmp_path):
-    from gogp_tpu import infer
+    from gogp import infer
 
     def logp(v):
         return -0.5 * jnp.sum(v * v)
@@ -64,7 +64,7 @@ def test_pt_checkpoint_resume(tmp_path):
     """Elasticity: a PT run checkpointed mid-stream resumes exactly —
     the sampler-state pytree round-trips through orbax and pt_sample_chunk
     continues from it."""
-    from gogp_tpu.infer.tempering import geometric_ladder, pt_init, pt_sample_chunk
+    from gogp.infer.tempering import geometric_ladder, pt_init, pt_sample_chunk
 
     def logp(v):
         return -0.5 * jnp.sum(v * v)
@@ -91,7 +91,7 @@ def test_chees_checkpoint_resume(tmp_path):
     """ChEESState (incl. its Adam/dual-averaging/Welford sub-states and the
     rng) round-trips through orbax and chees_sample_chunk continues exactly
     — the elasticity contract for the flagship sampler."""
-    from gogp_tpu.infer.chees import chees_init, chees_sample_chunk
+    from gogp.infer.chees import chees_init, chees_sample_chunk
 
     def logp(v):
         return -0.5 * jnp.sum(v * v)
@@ -111,7 +111,7 @@ def test_chees_checkpoint_resume(tmp_path):
 def test_laplace_and_ep_posterior_checkpoint_roundtrip(tmp_path):
     """The non-conjugate posteriors are plain pytrees too — serving caches
     survive a save/restore cycle (round-3 classification surface)."""
-    from gogp_tpu.gp import ep, laplace, likelihoods
+    from gogp.gp import ep, laplace, likelihoods
 
     rng = np.random.default_rng(0)
     x = jnp.asarray(np.sort(rng.uniform(-3, 3, size=(14, 1)), axis=0))
